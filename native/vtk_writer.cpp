@@ -13,7 +13,7 @@ extern "C" {
 
 // Writes an n^3 scalar field with spacing h as legacy ASCII VTK.
 // Returns 0 on success, nonzero on IO failure.
-int mgtpu_write_vtk(const char* file_name, const double* grid, double h, int n) {
+int mg_write_vtk(const char* file_name, const double* grid, double h, int n) {
     FILE* fh = std::fopen(file_name, "w");
     if (!fh) return 1;
     // Large stdio buffer: the writer is fputs/fprintf-bound otherwise.

@@ -1,12 +1,14 @@
 """Test env: CPU backend with 8 virtual devices, x64 enabled.
 
 Must run before jax initializes — pytest imports conftest before any test
-module, so setting env vars here is sufficient.
+module, so setting env vars here is sufficient. ``JAX_PLATFORMS`` picks
+the backend when set (``JAX_PLATFORMS=cuda ... -m gpu`` runs the tests
+that need the card); otherwise the CPU.
 """
 
 import os
 
-os.environ["JAX_PLATFORMS"] = "cpu"
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
@@ -16,6 +18,12 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax  # noqa: E402
 
 # A pytest plugin may import jax before this conftest runs, in which case
-# the env var above is too late — force the platform via config too.
-jax.config.update("jax_platforms", "cpu")
+# the env var above is too late — set the platform via config too.
+jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU; skips elsewhere (decided in a fixture)"
+    )

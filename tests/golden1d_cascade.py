@@ -1,6 +1,6 @@
 """Loop-level numpy transliteration of mg_1d_old.c:27-158.
 
-Exists purely as the C-parity oracle for multigrid_parallel_tpu.cascade
+Exists purely as the C-parity oracle for multigrid_parallel.cascade
 (same role golden3d.py plays for the 3D kernels): sequential strided
 Gauss-Seidel, in-place residual/restriction into the shared flat arrays,
 the unfilled coarse RHS (b stays zero, mg_1d_old.c:99-110), midpoint

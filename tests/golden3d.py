@@ -2,7 +2,7 @@
 
 These re-implement the *semantics* of the reference C kernels
 (mg_3d.h:640-1145) as straightforward in-place numpy loops, serving as the
-unit-test oracle for the vectorized jnp/Pallas ops. Small grids only.
+unit-test oracle for the vectorized jnp ops. Small grids only.
 """
 
 import numpy as np

@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 
 from golden1d_cascade import cascade_golden
-from multigrid_parallel_tpu.cascade import cascade_solve_1d
-from multigrid_parallel_tpu.utils.debug import (
+from multigrid_parallel.cascade import cascade_solve_1d
+from multigrid_parallel.utils.debug import (
     format_grid_3d,
     format_matrix,
     print_grid_3d,

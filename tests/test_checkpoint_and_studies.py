@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from multigrid_parallel_tpu import MultigridSolver
-from multigrid_parallel_tpu.studies import smoother_study
+from multigrid_parallel import MultigridSolver
+from multigrid_parallel.studies import smoother_study
 
 
 def test_checkpoint_resume_bit_exact(tmp_path):
@@ -40,7 +40,7 @@ def test_smoother_study_rb_ratio_fingerprint():
 
 
 def test_smoother_study_rb_converges_slower_than_multigrid():
-    from multigrid_parallel_tpu import CycleConfig, Hierarchy, poisson_3d_quadratic, solve
+    from multigrid_parallel import CycleConfig, Hierarchy, poisson_3d_quadratic, solve
 
     res = smoother_study(num_levels=3, rel_tol=1e-6, max_iters=800)
     hier = Hierarchy(ndim=3, coarse_n=5, num_levels=3)
@@ -69,14 +69,3 @@ def test_smoother_study_50cubed_reference_fingerprint():
     # the published 0.983675 equals our asymptotic pair-ratio squared.
     res = smoother_study(n=50, rel_tol=1e-8, max_iters=600)
     assert res.final_ratio**2 == pytest.approx(0.983675, abs=1e-5), res.final_ratio
-
-
-def test_smoother_study_pallas_matches_jnp():
-    # The Pallas-kernel study path (padded layout carried across
-    # iterations, f padded once) must produce the same residual
-    # trajectory as the jnp path.
-    ref = smoother_study(num_levels=2, rel_tol=0.0, max_iters=6)
-    pal = smoother_study(num_levels=2, rel_tol=0.0, max_iters=6, use_pallas=True)
-    assert pal.n_iters == ref.n_iters
-    for a, b in zip(pal.residual_norms, ref.residual_norms):
-        assert a == pytest.approx(b, rel=1e-5)

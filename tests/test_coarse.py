@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multigrid_parallel_tpu.ops import coarse
+from multigrid_parallel.ops import coarse
 
 
 def test_coarse_matrix_3d_structure():

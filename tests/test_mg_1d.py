@@ -6,13 +6,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multigrid_parallel_tpu import (
+from multigrid_parallel import (
     CycleConfig,
     Hierarchy,
     poisson_1d_cos,
     solve,
 )
-from multigrid_parallel_tpu.ops import stencils_1d as ops1
+from multigrid_parallel.ops import stencils_1d as ops1
 
 
 def _solve_1d(n_levels, smoother="rb", n_smooth=2, tol=1e-8):

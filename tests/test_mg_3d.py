@@ -10,7 +10,7 @@ Reference behavior to reproduce (measured from the C code, BASELINE.md):
 import numpy as np
 import pytest
 
-from multigrid_parallel_tpu import (
+from multigrid_parallel import (
     CycleConfig,
     Hierarchy,
     MultigridSolver,
@@ -18,7 +18,7 @@ from multigrid_parallel_tpu import (
     poisson_3d_trig,
     solve,
 )
-from multigrid_parallel_tpu.cycles import solve_on_device
+from multigrid_parallel.cycles import solve_on_device
 
 
 def test_33cubed_matches_reference_fingerprint():
@@ -138,7 +138,7 @@ def test_facade_profiled_cycle_times_stages():
 def test_w_cycle_converges_faster_per_cycle():
     """gamma=2 (W-cycle, beyond-reference) contracts at least as fast per
     cycle as the V-cycle and converges in fewer or equal cycles."""
-    import multigrid_parallel_tpu as mg
+    import multigrid_parallel as mg
 
     hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=4)
     v = mg.solve(mg.poisson_3d_quadratic(), hier,
@@ -156,7 +156,7 @@ def test_w_cycle_depth_cap_semantics():
     capped W-cycle IS the V-cycle, identical residual trajectory), and a
     mid-hierarchy cap (17 at 33^3: only the 9-level revisit skipped)
     still converges at W-cycle-like rate."""
-    import multigrid_parallel_tpu as mg
+    import multigrid_parallel as mg
 
     hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=4)  # 33^3
     prob = mg.poisson_3d_quadratic()

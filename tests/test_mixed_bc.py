@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multigrid_parallel_tpu.hierarchy import Hierarchy
-from multigrid_parallel_tpu.mixed_bc import MixedBCSolver, build_mixed_coarse_matrix
-from multigrid_parallel_tpu.models.electrospray import (
+from multigrid_parallel.hierarchy import Hierarchy
+from multigrid_parallel.mixed_bc import MixedBCSolver, build_mixed_coarse_matrix
+from multigrid_parallel.models.electrospray import (
     EXTRACTOR_VOLTAGE,
     electrospray_problem,
 )
@@ -254,78 +254,3 @@ def test_mixed_vcycle_fingerprint_33():
     assert len(norms) == pytest.approx(29, abs=3)
     tail = [b / a for a, b in zip(norms[-6:-1], norms[-5:])]
     assert all(0.55 < r < 0.62 for r in tail), tail
-
-
-# ---- padded fused-Pallas performance path (mixed_padded) ----
-
-
-def test_mixed_padded_df_solver_matches_reference_path():
-    """The padded fused-kernel electrospray solver (interpret mode off-
-    TPU) reproduces the reference-shaped jit path exactly: same outer
-    count, same solution to f32-correction roundoff."""
-    from multigrid_parallel_tpu import mixed_padded as mp
-
-    prob = electrospray_problem()
-    hier = Hierarchy(ndim=3, coarse_n=5, num_levels=4, length=prob.length)
-    s = MixedBCSolver(prob, hier, n_smooth=2)
-    run = mp.make_mixed_padded_df_solver(
-        s, rel_tol=1e-8, inner_cycles=1, jnp_level_max=9, block_i=4
-    )
-    st = mp.setup_mixed_df_problem(s)
-    u_hi, u_lo, norm, it = run(*st)
-    u_pad = mp.unpack_mixed_solution(u_hi, u_lo, hier)
-    u_ref, norm_ref, it_ref, init = s.solve_on_device(
-        rel_tol=1e-8, max_cycles=100, inner_cycles=1
-    )
-    assert int(it) == it_ref
-    assert float(norm) <= 1e-8 * init * 1.01
-    assert float(jnp.max(jnp.abs(u_pad - u_ref))) < 1e-7
-
-
-def test_mixed_padded_df_solver_wcycle():
-    """gamma=2 through the padded path: same 18-step fingerprint as the
-    host W-cycle (docs/MIXED_BC.md)."""
-    from multigrid_parallel_tpu import mixed_padded as mp
-
-    prob = electrospray_problem()
-    hier = Hierarchy(ndim=3, coarse_n=5, num_levels=4, length=prob.length)
-    s = MixedBCSolver(prob, hier, n_smooth=2, gamma=2)
-    run = mp.make_mixed_padded_df_solver(
-        s, rel_tol=1e-8, inner_cycles=1, jnp_level_max=9, block_i=4
-    )
-    st = mp.setup_mixed_df_problem(s)
-    _, _, _, it = run(*st)
-    u_ref, _, it_ref, _ = s.solve_on_device(
-        rel_tol=1e-8, max_cycles=60, inner_cycles=1
-    )
-    assert int(it) == it_ref
-    assert int(it) <= 20
-
-
-def test_mixed_fused_kernels_match_jnp_fallback():
-    """Forced-Pallas (interpret) vs all-jnp dispatch of the mixed padded
-    descend on the same defect."""
-    import numpy as np
-
-    from multigrid_parallel_tpu import cycles_padded as cp
-    from multigrid_parallel_tpu import mixed_padded as mp
-    from multigrid_parallel_tpu.ops import pallas3d as pk
-    import dataclasses
-
-    prob = electrospray_problem()
-    hier = Hierarchy(ndim=3, coarse_n=5, num_levels=4, length=prob.length)
-    s = MixedBCSolver(prob, hier, n_smooth=2)
-    hier32 = dataclasses.replace(hier, dtype=jnp.float32)
-    n = hier.finest_n
-    rng = np.random.default_rng(11)
-    r = np.zeros((n, n, n), np.float32)
-    r[1:-1, 1:-1, 1:-1] = rng.standard_normal((n - 2,) * 3).astype(np.float32)
-    rp = pk.pad3(jnp.asarray(r))
-
-    d_pal = mp._make_mixed_descend(s, hier32, jnp_level_max=9, block_i=4)
-    d_jnp = mp._make_mixed_descend(s, hier32, jnp_level_max=10**9, block_i=4)
-    lvl = hier.num_levels - 1
-    a = np.asarray(pk.unpad3(d_pal(None, rp, lvl, from_zero=True), n))
-    b = np.asarray(pk.unpad3(d_jnp(None, rp, lvl, from_zero=True), n))
-    scale = np.abs(b).max()
-    np.testing.assert_allclose(a, b, rtol=0, atol=3e-6 * scale)

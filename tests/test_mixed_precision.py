@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from multigrid_parallel_tpu import (
+from multigrid_parallel import (
     CycleConfig,
     Hierarchy,
     poisson_3d_quadratic,

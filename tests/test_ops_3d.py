@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import pytest
 
 import golden3d
-from multigrid_parallel_tpu.ops import stencils_3d as ops
+from multigrid_parallel.ops import stencils_3d as ops
 
 N = 9
 H = 1.0 / (N - 1)

@@ -1,6 +1,6 @@
 """Sharded (shard_map + ppermute halos) vs single-device equivalence.
 
-The TPU analogue of the reference's 1..8-thread invariance check
+The analogue of the reference's 1..8-thread invariance check
 (red_black_gs_scalability.txt pins identical convergence across thread
 counts): the same V-cycle on an 8-device virtual CPU mesh must match the
 single-device result to roundoff.
@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from multigrid_parallel_tpu import CycleConfig, Hierarchy, poisson_3d_quadratic
-from multigrid_parallel_tpu.cycles import make_cycle_fn, setup_problem
-from multigrid_parallel_tpu.parallel import sharded as sh
+from multigrid_parallel import CycleConfig, Hierarchy, poisson_3d_quadratic
+from multigrid_parallel.cycles import make_cycle_fn, setup_problem
+from multigrid_parallel.parallel import sharded as sh
 
 N_DEV = 8
 
@@ -77,7 +77,7 @@ def test_sharded_mixed_cycle_converges(mesh):
             break
     assert norm <= 1e-8 * init
     # analytic oracle on the gathered solution
-    from multigrid_parallel_tpu.hierarchy import evaluate_on_grid
+    from multigrid_parallel.hierarchy import evaluate_on_grid
 
     exact = evaluate_on_grid(prob.analytic, hier, hier.num_levels - 1)
     err = float(jnp.sqrt(jnp.sum((sh.unpad(u, hier) - exact) ** 2)))
@@ -86,7 +86,7 @@ def test_sharded_mixed_cycle_converges(mesh):
 
 def test_sharded_halo_smoother_matches(mesh):
     # one pre-smoother application, sharded vs not
-    from multigrid_parallel_tpu.ops import stencils_3d as ops3
+    from multigrid_parallel.ops import stencils_3d as ops3
     from jax.sharding import PartitionSpec as P
 
     hier = Hierarchy(ndim=3, coarse_n=5, num_levels=3)  # 17^3
@@ -114,7 +114,7 @@ def test_sharded_halo_smoother_matches(mesh):
 
 
 def test_sharded_transfer_ops_match(mesh):
-    from multigrid_parallel_tpu.ops import stencils_3d as ops3
+    from multigrid_parallel.ops import stencils_3d as ops3
     from jax.sharding import PartitionSpec as P
 
     hier = Hierarchy(ndim=3, coarse_n=5, num_levels=3)
@@ -200,10 +200,10 @@ def test_sharded_df_cycle_converges_all_f32(mesh):
             break
     assert norm <= 1e-8 * init, norm
     # oracle on the reconstructed f64 solution
-    from multigrid_parallel_tpu.hierarchy import evaluate_on_grid
-    from multigrid_parallel_tpu.ops import pallas3d as pk
+    from multigrid_parallel.hierarchy import evaluate_on_grid
+    from multigrid_parallel.ops import df as dfo
 
-    u = pk.df_to_f64(sh.unpad(u_hi, hier), sh.unpad(u_lo, hier))
+    u = dfo.df_to_f64(sh.unpad(u_hi, hier), sh.unpad(u_lo, hier))
     exact = evaluate_on_grid(prob.analytic, hier, hier.num_levels - 1)
     err = float(jnp.sqrt(jnp.sum((u - exact) ** 2)))
     assert err < 5e-8, err
@@ -230,3 +230,28 @@ def test_sharded_df_cycle_inner_cycles_amortize(mesh):
         assert norm <= 1e-8 * init, (ic, norm)
         steps[ic] = it + 1
     assert steps[2] < steps[1], steps
+
+
+@pytest.mark.parametrize("n_dev", [9, 16])
+def test_make_mesh_raises_on_too_few_devices(n_dev):
+    with pytest.raises(ValueError, match="devices"):
+        sh.make_mesh(n_dev)
+
+
+@pytest.mark.parametrize("n_dev", [2, 4, 8])
+def test_sharded_df_cycle_device_count_invariance(n_dev):
+    """The all-f32 df cycle gives the same norms on n_dev devices as on
+    one (the decomposition changes only where planes live)."""
+    hier = Hierarchy(ndim=3, coarse_n=5, num_levels=3)
+    cfg = CycleConfig(n_smooth=2)
+    prob = poisson_3d_quadratic()
+    norms = {}
+    for n in (1, n_dev):
+        m = sh.make_mesh(n)
+        cycle, plan = sh.make_sharded_df_cycle(hier, cfg, m)
+        u_hi, u_lo, f_hi, f_lo = sh.setup_df_problem_sharded(prob, hier, m, plan)
+        norms[n] = []
+        for _ in range(3):
+            u_hi, u_lo, nrm = cycle(u_hi, u_lo, f_hi, f_lo)
+            norms[n].append(float(nrm))
+    np.testing.assert_allclose(norms[n_dev], norms[1], rtol=1e-5)

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from multigrid_parallel_tpu.hierarchy import Hierarchy
-from multigrid_parallel_tpu.mixed_bc import MixedBCSolver
-from multigrid_parallel_tpu.models.electrospray import electrospray_problem
-from multigrid_parallel_tpu.parallel import sharded_mixed as sm
-from multigrid_parallel_tpu.parallel.sharded import make_mesh
+from multigrid_parallel.hierarchy import Hierarchy
+from multigrid_parallel.mixed_bc import MixedBCSolver
+from multigrid_parallel.models.electrospray import electrospray_problem
+from multigrid_parallel.parallel import sharded_mixed as sm
+from multigrid_parallel.parallel.sharded import make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +51,7 @@ def test_sharded_mixed_converges(mesh):
     cycle, plan = sm.make_sharded_mixed_bc_cycle(s, mesh)
     u, f = sm.setup_mixed_problem_sharded(s, mesh, plan)
     lvl = hier.num_levels - 1
-    from multigrid_parallel_tpu.ops import stencils_3d as ops3
+    from multigrid_parallel.ops import stencils_3d as ops3
 
     n = hier.finest_n
     init = float(ops3.residual_norm(u[:n], f[:n], hier.spacing(lvl)))
@@ -88,8 +88,8 @@ def test_apply_bcs_local_shard_boundary(mesh):
     shift read a pad plane here (round-4 regression; fixed with a
     one-plane ppermute)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from multigrid_parallel_tpu.ops import stencils_3d as ops3
-    from multigrid_parallel_tpu.parallel.sharded import plan_sharding
+    from multigrid_parallel.ops import stencils_3d as ops3
+    from multigrid_parallel.parallel.sharded import plan_sharding
 
     n = 17
     hier = Hierarchy(ndim=3, coarse_n=5, num_levels=3)
@@ -108,3 +108,24 @@ def test_apply_bcs_local_shard_boundary(mesh):
         jnp.asarray(u), NamedSharding(mesh, P("x")))))
     want = np.asarray(ops3.apply_neumann_copy(jnp.asarray(u[:n])))
     np.testing.assert_allclose(got[:n], want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_dev", [2, 4, 8])
+def test_sharded_mixed_device_count_invariance(n_dev):
+    """The mixed-BC cycle on n_dev devices equals the single-device
+    MixedBCSolver cycle (W-cycle with band relaxation)."""
+    prob = electrospray_problem()
+    hier = Hierarchy(ndim=3, coarse_n=5, num_levels=3, length=prob.length)
+    s = MixedBCSolver(prob, hier, n_smooth=2, gamma=2,
+                      boundary_band_width=2, boundary_band_iters=2)
+    m = make_mesh(n_dev)
+    cycle_n, plan = sm.make_sharded_mixed_bc_cycle(s, m)
+    un, fn = sm.setup_mixed_problem_sharded(s, m, plan)
+    u1, f1 = s.initial_state()
+    for it in range(2):
+        u1, n1 = s._cycle(u1, f1)
+        un, nn = cycle_n(un, fn)
+        assert float(nn) == pytest.approx(float(n1), rel=1e-10), it
+    n = hier.finest_n
+    np.testing.assert_allclose(np.asarray(un[:n]), np.asarray(u1), rtol=0,
+                               atol=1e-8)

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multigrid_parallel_tpu.hierarchy import (
+from multigrid_parallel.hierarchy import (
     Hierarchy,
     apply_boundary,
     boundary_mask,
@@ -12,9 +12,9 @@ from multigrid_parallel_tpu.hierarchy import (
     is_power_of_two,
     level_sizes,
 )
-from multigrid_parallel_tpu.models.electrospray import electrospray_problem
-from multigrid_parallel_tpu.ops import stencils_3d as ops
-from multigrid_parallel_tpu.utils.vtk import write_vtk
+from multigrid_parallel.models.electrospray import electrospray_problem
+from multigrid_parallel.ops import stencils_3d as ops
+from multigrid_parallel.utils.vtk import write_vtk
 
 
 def test_level_sizes_matches_reference_formula():
@@ -113,44 +113,3 @@ def test_apply_neumann_copy_full_faces():
     np.testing.assert_array_equal(out[-1, s, s], u[-2, s, s])
     np.testing.assert_array_equal(out[s, 0, s], u[s, 1, s])
     np.testing.assert_array_equal(out[s, s, 0], u[s, s, 1])
-
-
-def test_profile_padded_stages_structure():
-    """The padded-cycle profiler covers every fused stage plus the jnp
-    coarse subtree and the outer double-float stages."""
-    from multigrid_parallel_tpu.cycles import CycleConfig
-    from multigrid_parallel_tpu.utils.timing import profile_padded_stages
-
-    hier = Hierarchy(ndim=3, coarse_n=5, num_levels=3)  # 17^3
-    rows, lat = profile_padded_stages(
-        hier, CycleConfig(n_smooth=2), reps=1, jnp_level_max=9
-    )
-    labels = [lbl for lbl, _ in rows]
-    assert any("smoother (from-zero" in lbl for lbl in labels)
-    assert any("smoother (pipelined" in lbl for lbl in labels)
-    assert any("jnp subtree" in lbl for lbl in labels)
-    assert any("EFT residual+norm" in lbl for lbl in labels)
-    assert all(t >= 0.0 for _, t in rows)
-    assert lat >= 0.0
-
-
-def test_profile_padded_stages_slope_mode():
-    """The chain-slope mode (round-4 verdict item #6) produces the same
-    row structure with per-call slopes; on CPU (no dispatch latency to
-    cancel) the slope must be positive for the real stages."""
-    from multigrid_parallel_tpu.cycles import CycleConfig
-    from multigrid_parallel_tpu.utils.timing import profile_padded_stages
-
-    hier = Hierarchy(ndim=3, coarse_n=5, num_levels=3)  # 17^3
-    rows_c, _ = profile_padded_stages(
-        hier, CycleConfig(n_smooth=2), reps=1, jnp_level_max=9
-    )
-    rows_s, _ = profile_padded_stages(
-        hier, CycleConfig(n_smooth=2), reps=1, jnp_level_max=9,
-        method="slope", chains=(1, 3)
-    )
-    assert [lbl for lbl, _ in rows_s] == [lbl for lbl, _ in rows_c]
-    assert all(t >= 0.0 for _, t in rows_s)
-    # the jnp subtree runs real work on CPU: its slope is nonzero
-    sub = [t for lbl, t in rows_s if "jnp subtree" in lbl]
-    assert sub and sub[0] > 0.0
